@@ -1,5 +1,5 @@
 # Production image for ptmcmcsampler-tpu (mirrors the reference's Dockerfile
-# role; TPU wheels come from the libtpu release channel).
+# role).
 FROM python:3.12-slim AS base
 
 RUN apt-get update && apt-get install -y --no-install-recommends \
@@ -10,9 +10,9 @@ COPY pyproject.toml README.md ./
 COPY ptmcmcsampler_tpu ./ptmcmcsampler_tpu
 COPY csrc ./csrc
 
-# CPU JAX by default; swap for jax[tpu] on TPU VMs:
-#   pip install 'jax[tpu]' -f https://storage.googleapis.com/jax-releases/libtpu_releases.html
-RUN pip install --no-cache-dir . 'jax[cpu]' && \
+# CPU JAX by default; on an NVIDIA GPU host install JAX's CUDA build of the
+# same version instead (jax[cuda12]).
+RUN pip install --no-cache-dir . && \
     python -m ptmcmcsampler_tpu.io.build_native
 
 FROM base AS dev

@@ -1,5 +1,5 @@
 # Developer workflow (mirrors the reference's Makefile roles: init/test/dist,
-# plus TPU-native targets).
+# plus the native formatter and benchmark targets).
 
 PYTHON ?= python
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """20-D correlated-Gaussian example — the reference's examples/simple.py
-workload on the TPU-native sampler, with a custom uniform jump.
+workload on this sampler, with a custom uniform jump.
 
 Run: python examples/simple.py
 """
@@ -28,7 +28,7 @@ sampler = PTSampler(
     np.copy(cov),
     outDir=str(Path(__file__).parent / "chains"),
     ntemps=1,
-    nchains=64,  # TPU-native: 64 chains per temperature in one program
+    nchains=64,  # 64 chains per temperature in one program
     seed=0,
 )
 

@@ -1,4 +1,4 @@
-"""ptmcmcsampler_tpu — a TPU-native parallel-tempering MCMC framework.
+"""ptmcmcsampler_tpu — a parallel-tempering MCMC framework for accelerators.
 
 Ground-up JAX/XLA re-design with the capabilities of nanograv/PTMCMCSampler:
 the full adaptive jump zoo (SCAM/AM/DE/MALA/HMC/NUTS + custom/aux jumps),

@@ -16,6 +16,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from . import utils
 from .config import SamplerConfig
@@ -27,15 +28,15 @@ def welford_batch_update(adapt: AdaptState, xs: jax.Array) -> AdaptState:
 
     Chan et al. parallel update — exactly equivalent to feeding the ``m``
     samples one-by-one through the reference's sequential recursion
-    (PTMCMCSampler.py:785-792), but expressed as matmuls so XLA maps the
-    scatter update onto the MXU.
+    (PTMCMCSampler.py:785-792), but expressed as one matmul, pinned to full
+    float32 precision.
     """
     m = xs.shape[1]
     n = adapt.count
     nf = jnp.asarray(m, jnp.float32)
     batch_mean = jnp.mean(xs, axis=1)
     centered = xs - batch_mean[:, None]
-    batch_m2 = centered @ centered.T  # [D, D] — MXU
+    batch_m2 = jnp.matmul(centered, centered.T, precision=lax.Precision.HIGHEST)  # [D, D]
     delta = batch_mean - adapt.mean
     # Kahan-compensated count increment: exact integer accumulation long
     # after plain f32 would saturate (ulp > batch size near 3e10 samples).
@@ -98,9 +99,8 @@ def de_buffer_push(de: DEState, xs: jax.Array) -> DEState:
     shift-and-append of the AM buffer (PTMCMCSampler.py:806-817); the
     device-resident ring achieves the same "recent cold-chain history" pool
     with a rolling write per iteration. The write is expressed as a masked
-    roll, not ``.at[idx].set``: the traced-index scatter cost ~28 us/iter at
-    [8192, 2] on TPU, while roll+select is dense (identical values — a roll
-    only repositions).
+    roll, not ``.at[idx].set``: roll+select is dense, where a traced-index
+    scatter is not (identical values — a roll only repositions).
     """
     rows = de.buf.shape[1]
     m = xs.shape[1]

@@ -82,18 +82,7 @@ class SamplerConfig:
     thin: int = 10
     de_size: int = 10000  # DE history ring-buffer rows (reference: burn, :221)
 
-    # Behavior switches (TPU-native extensions).
-    use_pallas: bool = False  # fused Pallas trajectory kernels (ops/) for gradient jumps
-    # Lane-block width for the fused NUTS tree kernel: chains per grid
-    # program. Larger blocks amortize VPU op-issue overhead (the kernel is
-    # issue-bound at small ndim) but grow Mosaic's kernel stack ~linearly
-    # (blocks > 256 need --xla_tpu_scoped_vmem_limit_kib raised above the
-    # 16 MiB default) AND couple more lanes to each block's doubling-level
-    # early exit — a block only skips a level when EVERY lane is done.
-    # Measured at depth 10: 128 lanes = 21.8 ms/iter vs 256 = 25.5 (14%);
-    # depth 6 is a wash (11.2 vs 11.1) — 128 is the better default
-    # (PROFILE_r04.md).
-    pallas_nuts_block_n: int = 128
+    # Behavior switches (extensions beyond the reference).
     jump_select: str = "shared"  # "shared": one kind/iteration; "per_chain"
     # per_chain implementation: "auto" uses the rotation scheme (random
     # rotation into a static weight-proportional slot layout; every branch
@@ -106,7 +95,7 @@ class SamplerConfig:
     # the reference, gather cost /de_block), "iid" (reference-literal
     # independent pairs per chain), or "rolled" (fully shared shifts:
     # gather-free but synchronizes mode jumps across chains on multimodal
-    # targets — see proposals/de.py warning). See PROFILE_r05.md §4.
+    # targets — see proposals/de.py warning).
     de_pair: str = "blocked"
     de_block: int = 8  # chains per shared DE pair in "blocked" mode
     swap_mode: str = "sweep"  # "sweep" (reference parity) or "deo" (even/odd)
@@ -128,25 +117,11 @@ class SamplerConfig:
     nuts_force_epsilon: Optional[float] = None
     nuts_force_trajlen: Optional[int] = None
     nuts_trajectory: bool = False  # capture (T0, C0) trajectories (nutsjump.py:818-835)
-    # NUTS kernel implementation: "auto" rides the fused Pallas tree kernel
-    # (ops/nuts_pallas.py) on TPU whenever its constraints hold (depth <= 10,
-    # no trajectory capture, no force_trajlen) — measured ~6x the iterative
-    # XLA path on a v5e chip (PROFILE_r03.md) — and the vmapped XLA path
-    # elsewhere. "xla" / "pallas" force one path.
-    nuts_impl: str = "auto"
-    # Two-pass depth bucketing for the fused Pallas NUTS kernel: pass 1 runs
-    # a depth-<=nuts_pass1_depth tree for every lane; only lanes the cap cut
-    # are packed together and replayed at full depth (identical randomness,
-    # bitwise-identical composite — ops/nuts_pallas.py). A 128-lane block
-    # otherwise pays the deep levels whenever ANY of its lanes runs deep.
-    # 0 disables.
-    nuts_pass1_depth: int = 4
     # ChEES-HMC statics (beyond-reference vmap-friendly gradient mode).
     chees_max_steps: int = 256
     chees_delta: float = 0.651
     chees_lr: float = 0.025
     mass_adapt: bool = False  # reference keeps the initial mass matrix (nutsjump.py:210-215)
-    verbose: bool = True  # gates build-time diagnostics (e.g. the NUTS XLA-fallback warning)
 
     def __post_init__(self):
         assert self.ndim >= 1 and self.ntemps >= 1 and self.nchains >= 1
@@ -165,15 +140,6 @@ class SamplerConfig:
             raise ValueError(f"unknown de_pair {self.de_pair!r}")
         if self.de_block < 1:
             raise ValueError("de_block must be >= 1")
-        if self.nuts_impl not in ("auto", "xla", "pallas"):
-            raise ValueError(f"unknown nuts_impl {self.nuts_impl!r}")
-        if self.pallas_nuts_block_n < 128 or self.pallas_nuts_block_n % 128:
-            # Non-lane-aligned blocks die deep inside Mosaic at first NUTS
-            # compile; fail at construction instead.
-            raise ValueError(
-                "pallas_nuts_block_n must be a positive multiple of 128 "
-                f"(got {self.pallas_nuts_block_n})"
-            )
         if self.per_chain_mode not in ("auto", "rotation", "stacked"):
             raise ValueError(f"unknown per_chain_mode {self.per_chain_mode!r}")
         if self.jump_select == "per_chain":

@@ -89,6 +89,26 @@ def split_rhat(chains):
         return np.sqrt(var_plus / w)
 
 
+def moment_gate(samples, ess, target_mean):
+    """Posterior-mean gate against a known target.
+
+    samples: [..., ndim] pooled cold-chain draws; ess: [ndim] effective
+    sample counts (:func:`multichain_ess`). Passes when every coordinate's
+    sampled mean lies within 8 standard errors plus 0.02 posterior standard
+    deviations of the target (the floor absorbs ESS-estimation error and
+    float32 accumulation). Returns ``(ok, max_z)`` with ``z`` the error in
+    standard errors.
+    """
+    samples = np.asarray(samples)
+    flat = samples.reshape(-1, samples.shape[-1])
+    mean = flat.mean(axis=0, dtype=np.float64)
+    sd = flat.std(axis=0, dtype=np.float64)
+    se = np.maximum(sd / np.sqrt(np.maximum(ess, 1.0)), 1e-9)
+    err = np.abs(mean - np.asarray(target_mean, np.float64))
+    ok = bool(np.all(err < 8.0 * se + 0.02 * np.maximum(sd, 1e-9)))
+    return ok, float(np.max(err / se))
+
+
 def multichain_ess(chains):
     """Cross-chain effective sample size per parameter (Stan-style).
 

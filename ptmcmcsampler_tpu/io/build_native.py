@@ -1,4 +1,9 @@
-"""Build the native chainio library: ``python -m ptmcmcsampler_tpu.io.build_native``."""
+"""Build the native chainio library: ``python -m ptmcmcsampler_tpu.io.build_native``.
+
+The shared library is built from ``csrc/chainio.cpp`` into ``csrc/`` (listed
+in ``.gitignore``); ``io/native.py`` loads it when present and otherwise
+falls back to the numpy formatter.
+"""
 
 from __future__ import annotations
 
@@ -6,12 +11,15 @@ import os
 import subprocess
 import sys
 
+CSRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "csrc"
+)
 
-def build(verbose=True):
-    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    csrc = os.path.join(root, "csrc")
-    src = os.path.join(csrc, "chainio.cpp")
-    out = os.path.join(csrc, "libchainio.so")
+
+def build(out=None, verbose=True):
+    """Compile ``csrc/chainio.cpp``; returns the library path, or None."""
+    src = os.path.join(CSRC, "chainio.cpp")
+    out = out or os.path.join(CSRC, "libchainio.so")
     cmd = ["g++", "-O3", "-shared", "-fPIC", "-o", out, src]
     try:
         subprocess.run(cmd, check=True, capture_output=not verbose)

@@ -94,11 +94,11 @@ class ChainWriter:
         with open(self.fnames[i], "a") as f:
             f.write(text)
 
-    # ---- all-chain binary output (TPU extension) ----------------------
+    # ---- all-chain binary output (extension) ---------------------------
     #
     # The text chain files carry one chain per temperature for byte parity
     # with the reference (one MPI rank = one chain, PTMCMCSampler.py:96-97);
-    # the vmapped ``nchains`` axis — the main TPU throughput axis — is
+    # the vmapped ``nchains`` axis — the main throughput axis — is
     # harvested into an appendable raw-float32 sidecar per temperature,
     # ``chain_all_<temp>.bin`` + ``.json`` metadata.
 

@@ -109,7 +109,7 @@ def load_checkpoint(path, template_state):
             loaded.append(jax.random.wrap_key_data(new, impl=impl))
             continue
         if np.shape(tpl) != new.shape:
-            # Round-5 layout migration: positions went chain-minor
+            # Layout migration: positions went chain-minor
             # ([T, C, D] -> [T, D, C]) and the DE ring [B, D] -> [D, B].
             # Old checkpoints transpose losslessly.
             if name == "x" and new.ndim == 3 and np.shape(tpl) == (

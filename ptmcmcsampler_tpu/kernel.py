@@ -1,6 +1,6 @@
 """The per-iteration sampler kernel and the scanned block runner.
 
-This is the TPU-native replacement for the reference's hot loop
+This is the replacement for the reference's hot loop
 (``sample`` while-loop + ``PTMCMCOneStep``, PTMCMCSampler.py:499-629):
 one pure function ``step(state) -> state`` containing
 
@@ -36,7 +36,7 @@ class BlockOutput(NamedTuple):
     On an unsharded run the scalar-per-chain fields are emitted for chain 0
     only ([rows, T]) — the only column the chain files consume (reference
     writes one chain per rank, PTMCMCSampler.py:722-746) — which halves the
-    block's emitted HBM traffic; sharded runs keep the full [rows, T, C]
+    block's emitted device-memory traffic; sharded runs keep the full [rows, T, C]
     (slicing a sharded chain axis inside the step would insert collectives).
     """
 
@@ -144,7 +144,7 @@ def build_step(
     aux_chain = build_aux_chain(config)
     n_aux = len(config.aux_jumps)
 
-    # Optional NUTS trajectory capture for (temp 0, chain 0) — the TPU-native
+    # Optional NUTS trajectory capture for (temp 0, chain 0) — the on-device
     # form of the reference's trajectoryDir facility (nutsjump.py:818-835).
     # The capture kernel re-runs NUTS for that one chain with the same PRNG
     # key as the vmapped branch, so the recorded trajectory is identical.
@@ -164,7 +164,7 @@ def build_step(
     # The reference's law is a fresh independent kind draw per rank per
     # iteration (PTMCMCSampler.py:1058-1059). Evaluating every branch and
     # masking (the "stacked" fallback below) pays every family's cost each
-    # iteration; the TPU-native scheme instead draws ONE random rotation r
+    # iteration; the rotation scheme instead draws ONE random rotation r
     # per iteration and assigns chain c the kind of slot (c + r) % C in a
     # static weight-proportional layout. Each chain's marginal kind law is
     # the weight distribution (quantized to 1/nchains by largest-remainder

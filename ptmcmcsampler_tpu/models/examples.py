@@ -19,6 +19,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 
 class CorrelatedGaussian:
@@ -40,7 +41,8 @@ class CorrelatedGaussian:
 
     def lnlikefn(self, x):
         diff = x - self._mu_j
-        return -jnp.dot(diff, self._icov_j @ diff) / 2.0
+        hi = lax.Precision.HIGHEST
+        return -jnp.dot(diff, jnp.matmul(self._icov_j, diff, precision=hi), precision=hi) / 2.0
 
     def lnpriorfn(self, x):
         inside = jnp.all(jnp.asarray(self.a) <= x) & jnp.all(jnp.asarray(self.b) >= x)

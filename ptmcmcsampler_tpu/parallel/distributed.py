@@ -1,19 +1,18 @@
-"""Multi-host distribution helpers.
+"""Multi-process distribution helpers.
 
 The reference distributes with ``mpirun -np N`` over mpi4py (README.md:40-46,
-PTMCMCSampler.py:9-13); the TPU-native equivalent is one SPMD program over a
-multi-host device mesh: ``jax.distributed.initialize`` forms the runtime
-process group, and a 2-D (temperature x chain) mesh lays temperatures out so
-replica-exchange collectives ride ICI within a slice while the chain axis
-(pure data parallelism: no cross-chain communication except the shared
-covariance moments) spans DCN across hosts.
+PTMCMCSampler.py:9-13); the equivalent here is one SPMD program over a device
+mesh. On one host a single process drives every card: GPUs of a host are
+joined all to all (NVLink), so the mesh is a plain reshape of
+``jax.devices()`` and follows the algorithm alone. Several processes (one
+per host, or the CPU test harness) join with :func:`initialize_distributed`
+and lay the chain axis across processes.
 """
 
 from __future__ import annotations
 
 import jax
 import numpy as np
-from jax.experimental import mesh_utils
 from jax.sharding import Mesh
 
 _initialized = False
@@ -22,26 +21,15 @@ _initialized = False
 def initialize_distributed(
     coordinator_address=None, num_processes=None, process_id=None, **kwargs
 ):
-    """Join the multi-host process group (idempotent).
+    """Join the multi-process group (idempotent).
 
-    On Cloud TPU pods the arguments are auto-detected from the environment;
-    pass them explicitly elsewhere. Single-process runs are a no-op, mirroring
-    the reference's ``nompi4py.MPIDummy`` serial fallback (nompi4py.py:1-37).
+    Pass ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id``. Called without them it is a single-process no-op,
+    mirroring the reference's ``nompi4py.MPIDummy`` serial fallback
+    (nompi4py.py:1-37).
     """
     global _initialized
-    if _initialized:
-        return
-    if coordinator_address is None and num_processes is None:
-        # Auto-detect path: on TPU pods / managed clusters initialize() finds
-        # its arguments in the environment. Probing jax.process_count() first
-        # would *initialize the local-only backend* and always report 1, so we
-        # must attempt distributed init directly and treat "nothing to join"
-        # as the single-process no-op.
-        try:
-            jax.distributed.initialize(**kwargs)
-        except (RuntimeError, ValueError):
-            pass  # single-process (the MPIDummy analogue) or already joined
-        _initialized = True
+    if _initialized or (coordinator_address is None and num_processes is None):
         return
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -57,11 +45,11 @@ def make_pt_mesh(ntemp_devices=None, nchain_devices=1, devices=None,
     """2-D (temp, chain) device mesh.
 
     ``temp`` is the replica-exchange axis: adjacent temperatures exchange
-    state every ``tskip`` iterations, so this axis should stay within an ICI
-    domain. ``chain`` is embarrassingly parallel (only the psum'd covariance
-    moments cross it) and can safely span DCN. On a multi-host platform the
-    mesh is built with ``create_hybrid_device_mesh`` so the chain axis maps to
-    the DCN (inter-host) dimension.
+    state every ``tskip`` iterations. ``chain`` is embarrassingly parallel
+    (only the psum'd covariance moments cross it). In one process the mesh
+    is a plain reshape of ``devices``. With several processes the chain axis
+    tiles the processes and each process's own devices fill the temp axis,
+    so replica exchange never leaves a process.
     """
     if devices is None:
         devices = jax.devices()
@@ -73,51 +61,29 @@ def make_pt_mesh(ntemp_devices=None, nchain_devices=1, devices=None,
     )
     shape = (ntemp_devices, nchain_devices)
     nproc = jax.process_count()
-    if nproc > 1:
-        # chain (DP-like) across hosts, temp within a host's ICI domain. The
-        # temp axis must NOT span DCN: replica exchange runs every tskip
-        # iterations and is the latency-critical collective.
-        if nchain_devices % nproc != 0:
+    if nproc == 1:
+        dmesh = np.asarray(devices[: ntemp_devices * nchain_devices]).reshape(shape)
+        return Mesh(dmesh, (temp_axis, chain_axis))
+    if nchain_devices % nproc != 0:
+        raise ValueError(
+            f"nchain_devices={nchain_devices} must be a multiple of the "
+            f"process count {nproc} so the chain axis tiles across processes"
+        )
+    local_chain = nchain_devices // nproc
+    per_proc = ntemp_devices * local_chain
+    dmesh = np.empty(shape, dtype=object)
+    procs = sorted({d.process_index for d in devices})
+    if len(procs) < nproc:
+        raise ValueError(f"devices span {len(procs)} processes; mesh needs {nproc}")
+    for ci, p in enumerate(procs[:nproc]):
+        local = [d for d in devices if d.process_index == p][:per_proc]
+        if len(local) < per_proc:
             raise ValueError(
-                f"nchain_devices={nchain_devices} must be a multiple of the "
-                f"process count {nproc} so the chain axis tiles across hosts"
+                f"process {p} has {len(local)} devices; mesh needs "
+                f"{per_proc} per process"
             )
-        try:
-            dmesh = mesh_utils.create_hybrid_device_mesh(
-                mesh_shape=(ntemp_devices, nchain_devices // nproc),
-                dcn_mesh_shape=(1, nproc),
-                devices=devices,
-            )
-        except ValueError:
-            # Backends without slice metadata (e.g. multi-process CPU, used
-            # by the 2-process test): group by process_index by hand — temp
-            # axis inside each process's devices, chain tiles the processes.
-            local_chain = nchain_devices // nproc
-            per_proc = ntemp_devices * local_chain
-            dmesh = np.empty((ntemp_devices, nchain_devices), dtype=object)
-            procs = sorted({d.process_index for d in devices})
-            if len(procs) < nproc:
-                raise
-            for ci, p in enumerate(procs[:nproc]):
-                local = [d for d in devices if d.process_index == p][:per_proc]
-                if len(local) < per_proc:
-                    raise ValueError(
-                        f"process {p} has {len(local)} devices; mesh needs "
-                        f"{per_proc} per process"
-                    )
-                block = np.asarray(local, dtype=object).reshape(
-                    ntemp_devices, local_chain
-                )
-                dmesh[:, ci * local_chain : (ci + 1) * local_chain] = block
-    else:
-        try:
-            dmesh = mesh_utils.create_device_mesh(
-                shape, devices=devices[: ntemp_devices * nchain_devices]
-            )
-        except (ValueError, AssertionError):
-            # Non-torus device sets (e.g. virtual CPU devices) have no
-            # physical layout to optimize; a plain reshape is equivalent.
-            dmesh = np.asarray(devices[: ntemp_devices * nchain_devices]).reshape(shape)
+        block = np.asarray(local, dtype=object).reshape(ntemp_devices, local_chain)
+        dmesh[:, ci * local_chain : (ci + 1) * local_chain] = block
     return Mesh(dmesh, (temp_axis, chain_axis))
 
 

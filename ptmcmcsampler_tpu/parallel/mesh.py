@@ -1,6 +1,6 @@
 """Device-mesh sharding of the sampler state.
 
-TPU-native replacement for the reference's MPI distribution model
+Replacement for the reference's MPI distribution model
 (one rank per temperature, PTMCMCSampler.py:94-105 + mpi4py collectives,
 SURVEY.md §2.1 C13): the temperature axis of every state array is sharded
 over a ``jax.sharding.Mesh`` axis and the *same* jitted step program runs on
@@ -8,7 +8,7 @@ every device. GSPMD inserts the collectives the reference did by hand:
 
   * the swap permutation (gather/sweep/scatter, :660-691) becomes a
     take-along-axis over the sharded temperature axis -> all-to-all /
-    collective-permute over ICI;
+    collective-permute between devices;
   * the rank-0 covariance & DE-buffer broadcasts (:545-576) vanish — the
     Welford moments are computed from the (replicated-output) cold-chain rows
     and every device derives identical adaptation state;

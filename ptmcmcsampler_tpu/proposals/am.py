@@ -16,8 +16,23 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from .base import GroupEmbed, draw_am_scale, random_group, switch_over_groups
+
+
+def eigen_pick(u, s, ind):
+    """``(sqrt(s[ind]), u[:, ind])`` as one-hot contractions.
+
+    A traced per-chain index lowers to a slow per-element gather under vmap;
+    a dot with a one-hot vector picks the identical values (a single 1.0
+    row), but only at full float32 precision: a TF32 product would round the
+    picked values to 10 mantissa bits.
+    """
+    oh = jax.nn.one_hot(ind, s.shape[0], dtype=u.dtype)
+    sval = jnp.dot(jnp.sqrt(jnp.maximum(s, 0.0)), oh, precision=lax.Precision.HIGHEST)
+    vec = jnp.dot(u, oh, precision=lax.Precision.HIGHEST)
+    return sval, vec
 
 
 def make_scam(config):
@@ -35,13 +50,7 @@ def make_scam(config):
 
             def apply(x, scale, ctx):
                 u, s = ctx.group_u[gi], ctx.group_s[gi]
-                ind = jax.random.randint(ki, (), 0, sg)
-                # One-hot contraction instead of u[:, ind]/s[ind]: a traced
-                # per-chain index lowers to a slow per-element gather under
-                # vmap; the dot picks identical values (single 1.0 row).
-                oh = jax.nn.one_hot(ind, sg, dtype=x.dtype)
-                sval = jnp.sqrt(jnp.maximum(s, 0.0)) @ oh
-                vec = u @ oh
+                sval, vec = eigen_pick(u, s, jax.random.randint(ki, (), 0, sg))
                 # neff == 1 always in the reference (:868-870)
                 cd = jnp.asarray(2.4 / np.sqrt(2.0), x.dtype)
                 step = jax.random.normal(kn, dtype=x.dtype) * cd * scale * sval * vec
@@ -72,12 +81,15 @@ def make_am(config):
 
             def apply(x, scale, ctx):
                 u, s = ctx.group_u[gi], ctx.group_s[gi]
-                y = u.T @ emb.take(x)
+                # Rotate into the eigenbasis and back at full float32
+                # precision: with rounded products U(U^T x + xi) is not a
+                # symmetric proposal.
+                y = jnp.matmul(u.T, emb.take(x), precision=lax.Precision.HIGHEST)
                 cd = jnp.asarray(cd0, x.dtype) * scale
                 y = y + jax.random.normal(kn, (sg,), dtype=x.dtype) * cd * jnp.sqrt(
                     jnp.maximum(s, 0.0)
                 )
-                return emb.set_at(x, u @ y)
+                return emb.set_at(x, jnp.matmul(u, y, precision=lax.Precision.HIGHEST))
 
             return apply
 

@@ -17,6 +17,7 @@ import chex
 import jax
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 
 @chex.dataclass
@@ -54,10 +55,10 @@ class GroupEmbed:
     """Static helpers expressing per-group gather/scatter as exact matmuls.
 
     Under vmap over thousands of chains, ``x[g]`` / ``x.at[g].add(...)`` with
-    a *traced-free but fancy* index lower to per-element gathers/scatters that
-    run ~100x slower than dense math on TPU. Since groups are static, the same
-    values are produced exactly (each selection row holds a single 1.0) by
-    tiny matmuls and masked selects.
+    a *traced-free but fancy* index lower to per-element gathers/scatters.
+    Since groups are static, the same values are produced exactly (each
+    selection row holds a single 1.0) by tiny matmuls and masked selects —
+    at full float32 precision, which the contractions below pin.
     """
 
     def __init__(self, g, ndim, dtype):
@@ -72,19 +73,23 @@ class GroupEmbed:
 
     def take(self, x):
         """``x[g]``."""
-        return x if self.identity else self.sel.T @ x
+        return x if self.identity else jnp.matmul(self.sel.T, x, precision=lax.Precision.HIGHEST)
 
     def add_at(self, x, step):
         """``x.at[g].add(step)``."""
         if self.identity:
             return x + step
-        return jnp.where(self.mask, x + self.sel @ step, x)
+        return jnp.where(
+            self.mask, x + jnp.matmul(self.sel, step, precision=lax.Precision.HIGHEST), x
+        )
 
     def set_at(self, x, vals):
         """``x.at[g].set(vals)``."""
         if self.identity:
             return vals
-        return jnp.where(self.mask, self.sel @ vals, x)
+        return jnp.where(
+            self.mask, jnp.matmul(self.sel, vals, precision=lax.Precision.HIGHEST), x
+        )
 
 
 def random_group(key, ngroups):

@@ -33,8 +33,8 @@ over its chains):
   averaged mean), preserving detailed balance exactly.
 
 All adaptation statistics are cross-chain means, so under a sharded chain
-axis they lower to ``psum``s over ICI — every device owns identical ChEES
-state without broadcasts.
+axis they lower to ``psum``s — every device owns identical ChEES state
+without broadcasts.
 """
 
 from __future__ import annotations
@@ -103,56 +103,34 @@ def make_chees(config, func_grad):
         )(k_mom)  # [T, D, C]
         k0 = 0.5 * jnp.sum(r0 * r0, axis=1)
 
-        if config.use_pallas:
-            # Fused trajectory kernel: whole leapfrog loop in VMEM with the
-            # chain batch on the lane axis (ops/chees_pallas.py). Same
-            # randomness and dynamics as the XLA while_loop below.
-            from ..ops.chees_pallas import fused_chees_trajectories
+        lf = jax.vmap(
+            jax.vmap(
+                lambda z, r, g, e, b: leapfrog(fgw, ctx, b, z, r, g, e),
+                in_axes=(-1, -1, -1, 0, None),
+                out_axes=(-1, -1, -1, 0),
+            ),
+            in_axes=(0, 0, 0, 0, 0),
+        )
 
-            n = t * c
-            z1f, r1f, logp1f = fused_chees_trajectories(
-                jnp.moveaxis(q0, 1, 2).reshape(n, d),
-                jnp.moveaxis(r0, 1, 2).reshape(n, d),
-                jnp.repeat(betas, c).astype(dt),
-                eps_t.reshape(n),
-                nsteps.reshape(n),
-                ctx.chol,
-                func_grad=func_grad,
-                ndim=d,
-                max_steps=max_steps,
-            )
-            z1 = jnp.moveaxis(z1f.reshape(t, c, d), 1, 2)
-            r1 = jnp.moveaxis(r1f.reshape(t, c, d), 1, 2)
-            logp1 = logp1f.reshape(t, c)
-        else:
-            lf = jax.vmap(
-                jax.vmap(
-                    lambda z, r, g, e, b: leapfrog(fgw, ctx, b, z, r, g, e),
-                    in_axes=(-1, -1, -1, 0, None),
-                    out_axes=(-1, -1, -1, 0),
-                ),
-                in_axes=(0, 0, 0, 0, 0),
-            )
+        max_n = jnp.max(nsteps)
 
-            max_n = jnp.max(nsteps)
+        def body(carry):
+            # Finished lanes take an eps=0 step — an exact identity
+            # leapfrog (z + 0*rh, r + 0*g, grad/logp recomputed at the
+            # unchanged point) — instead of masked selects on four
+            # carries: one [T, C] where replaces four full-state wheres
+            # per step.
+            i, z, r, g, logp = carry
+            e_step = jnp.where(i < nsteps, eps_t, jnp.zeros((), dt))
+            z, r, g, logp = lf(z, r, g, e_step, betas)
+            return i + 1, z, r, g, logp
 
-            def body(carry):
-                # Finished lanes take an eps=0 step — an exact identity
-                # leapfrog (z + 0*rh, r + 0*g, grad/logp recomputed at the
-                # unchanged point) — instead of masked selects on four
-                # carries: one [T, C] where replaces four full-state wheres
-                # per step (~10% of the headline iteration, round-5 trace).
-                i, z, r, g, logp = carry
-                e_step = jnp.where(i < nsteps, eps_t, jnp.zeros((), dt))
-                z, r, g, logp = lf(z, r, g, e_step, betas)
-                return i + 1, z, r, g, logp
+        def cond(carry):
+            return carry[0] < max_n
 
-            def cond(carry):
-                return carry[0] < max_n
-
-            _, z1, r1, g1, logp1 = jax.lax.while_loop(
-                cond, body, (jnp.zeros((), jnp.int32), q0, r0, grad0, logp0)
-            )
+        _, z1, r1, g1, logp1 = jax.lax.while_loop(
+            cond, body, (jnp.zeros((), jnp.int32), q0, r0, grad0, logp0)
+        )
 
         k1 = 0.5 * jnp.sum(r1 * r1, axis=1)
         joint0 = logp0 - k0

@@ -10,7 +10,7 @@ Reference behavior reproduced (PTMCMCSampler.py:987-1067):
   * auxiliary jumps run after every standard proposal, with summed log_qxy
     (:1062-1065).
 
-TPU-native design: in ``jump_select="shared"`` mode one kind is drawn per
+Design: in ``jump_select="shared"`` mode one kind is drawn per
 iteration (independent of all chain states, so each chain still evolves by the
 same mixture kernel) and dispatched through a scalar-index ``lax.switch`` —
 at runtime only the selected family's cost is paid, so cheap AM iterations
@@ -38,12 +38,6 @@ from ..config import (
 )
 from . import am, chees, de, gradient, nuts
 from .base import ProposalContext
-
-
-def _nuts_pallas_max_depth():
-    from ..ops.nuts_pallas import MAX_UNROLL_DEPTH
-
-    return MAX_UNROLL_DEPTH
 
 
 def _wrap_legacy(fn, ndim, dtype):
@@ -142,33 +136,11 @@ def build_jump_branches(config: SamplerConfig, func_grad=None, logp=None):
         branch(keys[T,C,...], x[T,D,C], betas[T], it, ctx, ss_dict) ->
             (q[T,D,C], log_qxy[T,C], new_ss_dict)
     (x and q are chain-minor; per-chain kernels are vmapped with the chain
-    batch on the minor axis so elementwise work fills the TPU lane dim)
+    batch on the minor, contiguous axis)
     where ``ss_dict`` holds the per-(T,C) NUTS dual-averaging scalars.
     ``logp`` (single-chain prior log-density) is required by prior-draw jumps
     for their Hastings correction.
     """
-    if (
-        config.use_pallas
-        and jax.default_backend() == "tpu"
-        and any(s.kind in (KIND_CHEES, KIND_HMC) and s.weight > 0 for s in config.jumps)
-    ):
-        # The fused ChEES/HMC trajectory kernels are correct standalone and
-        # under the CPU interpreter (tests/test_pallas_ops.py), but embedded
-        # in the scanned step on real TPU hardware they have failed
-        # terminally in three consecutive measurement rounds (a Mosaic
-        # worker crash, a 55-minute compile stall, and a kernel-fault worker
-        # crash — PROFILE_r02/r03/r04.md), while the XLA leapfrog path runs
-        # ~0.6 ms/iter for the full batch. A shipped opt-in that kills the
-        # TPU worker is worse than no opt-in: fail loudly at build time.
-        # (use_pallas remains honored for the NUTS tree kernel, which is
-        # hardware-validated in-step and default-on via nuts_impl="auto".)
-        raise RuntimeError(
-            "use_pallas=True with ChEES/HMC jumps is not supported on TPU: "
-            "the fused trajectory kernels crash the TPU worker when embedded "
-            "in the scanned step (see PROFILE_r04.md). Use the default XLA "
-            "leapfrog path (use_pallas=False), or call the kernels "
-            "standalone via ptmcmcsampler_tpu.ops."
-        )
     branches = []
     for spec in config.jumps:
         if spec.kind == KIND_DE and config.de_pair in ("blocked", "rolled"):
@@ -192,92 +164,7 @@ def build_jump_branches(config: SamplerConfig, func_grad=None, logp=None):
             def branch(keys, x, betas, it, ctx, ss, _kernel=kernel):
                 return _kernel(keys, x, betas, it, ctx, ss)
 
-        elif spec.kind == KIND_HMC and config.use_pallas and func_grad is not None:
-            # Fused Pallas trajectory kernel: whole-batch leapfrog loop in
-            # VMEM, chains on the lane axis (ops/hmc_pallas.py). Same
-            # randomness and semantics as the vmapped XLA path below.
-            from ..ops import make_hmc_pallas
-
-            kernel = make_hmc_pallas(config, func_grad)
-
-            def branch(keys, x, betas, it, ctx, ss, _kernel=kernel):
-                # fused kernel keeps the historical [T, C, D] interface
-                q, qxy = _kernel(keys, jnp.moveaxis(x, 1, 2), betas, ctx)
-                return jnp.moveaxis(q, 1, 2), qxy, ss
-
-        elif spec.kind == KIND_NUTS and config.nuts_impl == "pallas" and not (
-            func_grad is not None
-            and config.nuts_max_depth <= _nuts_pallas_max_depth()
-            and config.nuts_force_trajlen is None
-            and not config.nuts_trajectory
-        ):
-            # An explicitly forced Pallas path that silently fell back to
-            # XLA would make users benchmark the wrong implementation.
-            raise ValueError(
-                "nuts_impl='pallas' requires gradients, nuts_max_depth <= "
-                f"{_nuts_pallas_max_depth()} (got {config.nuts_max_depth}), "
-                "no nuts_force_trajlen, and no trajectory capture; use "
-                "nuts_impl='auto' to fall back to the XLA path when these "
-                "do not hold"
-            )
-
-        elif (
-            spec.kind == KIND_NUTS
-            and func_grad is not None
-            and config.nuts_impl != "xla"
-            and (
-                config.nuts_impl == "pallas"
-                or config.use_pallas
-                or jax.default_backend() == "tpu"  # "auto": default on TPU
-            )
-            and config.nuts_max_depth <= _nuts_pallas_max_depth()
-            and config.nuts_force_trajlen is None
-            and not config.nuts_trajectory  # capture replays the XLA key splits
-        ):
-            # Fused Pallas tree kernel: the whole NUTS doubling loop (up to
-            # 2**depth - 1 leapfrog leaves, checkpointed U-turn checks,
-            # reservoir subtree sampling) runs in VMEM with chains on the
-            # lane axis (ops/nuts_pallas.py). Same tree law as the vmapped
-            # XLA path below; measured ~6x cheaper per iteration on a v5e
-            # chip at depth 6 (PROFILE_r03.md), and the default NUTS path on
-            # TPU (nuts_impl="auto"); off-TPU the kernel would run in the
-            # slow interpreter, so the XLA path stays the default there.
-            from ..ops import make_nuts_pallas
-
-            kernel = make_nuts_pallas(config, func_grad)
-
-            def branch(keys, x, betas, it, ctx, ss, _kernel=kernel):
-                # fused kernel keeps the historical [T, C, D] interface; the
-                # boundary transposes are noise against the tree's cost
-                q, qxy, new_ss = _kernel(keys, jnp.moveaxis(x, 1, 2), betas, it, ctx, ss)
-                return jnp.moveaxis(q, 1, 2), qxy, new_ss
-
         elif spec.kind == KIND_NUTS:
-            if (
-                func_grad is not None
-                and config.nuts_impl == "auto"
-                and config.verbose
-                and jax.default_backend() == "tpu"
-            ):
-                # The auto gate fell through to the (~7x slower, PROFILE_r03)
-                # XLA path on the very hardware the fused kernel targets —
-                # say why, loudly, instead of letting the user benchmark the
-                # wrong implementation (round-4 verdict item).
-                reasons = []
-                if config.nuts_max_depth > _nuts_pallas_max_depth():
-                    reasons.append(
-                        "NUTSmaxdepth=%d > %d (the fused kernel's cap)"
-                        % (config.nuts_max_depth, _nuts_pallas_max_depth())
-                    )
-                if config.nuts_force_trajlen is not None:
-                    reasons.append("nuts_force_trajlen is set")
-                if config.nuts_trajectory:
-                    reasons.append("trajectory capture is on")
-                print(
-                    "WARNING: NUTS is using the XLA tree path on TPU (%s); "
-                    "the fused Pallas kernel is ~7x faster per iteration."
-                    % "; ".join(reasons or ["unknown gate"])
-                )
             kernel = nuts.make_nuts(config, func_grad)
 
             def branch(keys, x, betas, it, ctx, ss, _kernel=kernel):

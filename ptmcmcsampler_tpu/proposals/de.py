@@ -17,10 +17,9 @@ Two pair-selection modes (``SamplerConfig.de_pair``):
   preserves the product posterior, so stationarity is exact (statistical
   equivalence to iid pairs is asserted in tests/test_de_modes.py, and the
   bench's moment QA z-score on the bimodal curved target gates the
-  cross-chain correlation empirically). TPU motivation: the full buffer
+  cross-chain correlation empirically). Motivation: the full buffer
   difference is rolls and a subtract, where per-chain iid rows cost a
-  ~0.4 ms per-element gather per call at [8x8192] (and a one-hot matmul
-  measured even worse, 0.93 ms — round-5 trace).
+  per-element gather per call.
 * ``"iid"`` — the reference's literal law: independent uniform
   ordered-distinct rows per chain, via gather.
 
@@ -95,10 +94,9 @@ def make_de_blocked(config):
     ordered-distinct draw; the joint selection has C/de_block independent
     pairs per temperature per iteration (vs C for literal iid), which the
     curved-target moment QA measures as statistically indistinguishable from
-    iid — while the gather touches de_block-times fewer rows (the per-chain
-    iid gather cost ~0.2 ms/iter amortized at [8x8192]; fully-shared shift
-    schemes were gather-free but synchronized mode jumps across all chains,
-    measured z~34 on the bench QA — see PROFILE_r05.md §4).
+    iid — while the gather touches de_block-times fewer rows (fully-shared
+    shift schemes are gather-free but synchronize mode jumps across all
+    chains: z~34 on the bench's moment QA).
     """
     groups = [np.asarray(g) for g in config.groups]
     embeds = [GroupEmbed(g, config.ndim, config.dtype) for g in groups]
@@ -136,8 +134,8 @@ def make_de_batch(config):
 
     WARNING: all chains' pairs derive from one scalar shift pair per
     iteration; on multimodal targets the synchronized difference vectors
-    correlate mode transitions across chains (measured moments_max_z ~ 34 on
-    the curved bench vs 0.65 for iid — PROFILE_r05.md §4). Prefer the
+    correlate mode transitions across chains (moments_max_z ~ 34 on the
+    curved bench vs 0.65 for iid). Prefer the
     default "blocked" mode; "rolled" remains for unimodal targets where the
     last ~3% of iteration rate matters.
 
@@ -159,8 +157,7 @@ def make_de_batch(config):
         # so adjacent chains get unrelated row pairs (a same-direction
         # variant measured z = 33 on the bench's moment QA — the shared
         # difference vector synchronized mode jumps across chains and
-        # inflated the pooled ESS; this variant measures clean z, see
-        # PROFILE_r05.md).
+        # inflated the pooled ESS; this variant measures clean z).
         skey = jax.random.fold_in(keys[0, 0], 7919)
         k1, k2 = jax.random.split(skey)
         s1 = jax.random.randint(k1, (), 0, nvalid)

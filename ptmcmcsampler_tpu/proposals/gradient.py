@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 from .base import ProposalContext  # noqa: F401  (docs)
 
@@ -30,19 +31,21 @@ from .base import ProposalContext  # noqa: F401  (docs)
 def make_whitened_funcs(func_grad):
     """Build the whitened-space helpers around a tempered ``func_grad``.
 
-    ``func_grad(x, beta) -> (val, grad)`` operates in the original space.
+    ``func_grad(x, beta) -> (val, grad)`` operates in the original space. The
+    whitening products are pinned to full float32 precision so that
+    ``backward(forward(x))`` returns ``x`` to within rounding.
     """
 
     def forward(ctx, x):
-        return ctx.chol_inv.T @ x
+        return jnp.matmul(ctx.chol_inv.T, x, precision=lax.Precision.HIGHEST)
 
     def backward(ctx, q):
-        return ctx.chol.T @ q
+        return jnp.matmul(ctx.chol.T, q, precision=lax.Precision.HIGHEST)
 
     def func_grad_white(ctx, q, beta):
         x = backward(ctx, q)
         fv, fg = func_grad(x, beta)
-        return fv, ctx.chol @ fg
+        return fv, jnp.matmul(ctx.chol, fg, precision=lax.Precision.HIGHEST)
 
     return forward, backward, func_grad_white
 
@@ -76,7 +79,7 @@ def make_mala(config, func_grad):
         # (nutsjump.py:193-198).
         i = jax.random.randint(ki, (), 0, ndim)
         # one_hot, not .at[i].set: a traced index scatter per vmapped chain
-        # lowers to a slow per-element scatter on TPU.
+        # lowers to a slow per-element scatter.
         vec = jax.nn.one_hot(i, ndim, dtype=x.dtype)
         dist = jax.random.normal(kd, dtype=x.dtype)
 

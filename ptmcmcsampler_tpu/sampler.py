@@ -2,16 +2,16 @@
 
 API-compatible with the reference ``PTSampler`` (PTMCMCSampler.py:40-528):
 same constructor and ``sample()`` keywords, same chain-file outputs, same
-proposal-cycle semantics — but the execution model is TPU-native: the whole
-[ntemps, nchains] replica system advances inside one jitted ``lax.scan``
-program per output block, and multi-chip runs shard the temperature axis of
-the same program over a ``jax.sharding.Mesh`` instead of MPI ranks.
+proposal-cycle semantics — but the whole [ntemps, nchains] replica system
+advances inside one jitted ``lax.scan`` program per output block, and
+multi-device runs shard the temperature axis of the same program over a
+``jax.sharding.Mesh`` instead of MPI ranks.
 
 Key differences from the reference (all capability supersets):
   * ``ntemps`` is an explicit argument (the reference derives one chain per
     MPI rank, PTMCMCSampler.py:96-97); ``comm`` is accepted and ignored.
   * ``nchains`` vmaps many independent chains per temperature (absent in the
-    reference, the main throughput axis on TPU).
+    reference, the main throughput axis on the accelerator).
   * user logl/logp callables that are JAX-traceable run fused on device;
     plain-numpy callables still work through a host-callback fallback.
   * full-state checkpointing (adaptation, RNG, step sizes) in addition to the
@@ -68,10 +68,8 @@ def _wrap_scalar_fn(f, args, kwargs, ndim, dtype, out_shape=()):
 
         def traced(x):
             v = jnp.asarray(call(x), dtype)
-            # Elide the no-op reshape: inside Pallas kernels a vmapped 0-d
-            # reshape lowers to an invalid scalar vector.broadcast (Mosaic
-            # verification error, hit by the fused NUTS kernel when the
-            # user's grad already returns the right shapes).
+            # No-op reshapes are elided: the wrapper adds no ops to a
+            # callable that already returns the right shape.
             return v if v.shape == tuple(out_shape) else v.reshape(out_shape)
 
         return traced, True
@@ -100,8 +98,7 @@ def _wrap_grad_fn(f, args, kwargs, ndim, dtype):
             v, g = call(x)
             v = jnp.asarray(v, dtype)
             g = jnp.asarray(g, dtype)
-            # No-op reshapes elided (see _wrap_scalar_fn: Mosaic rejects the
-            # vmapped 0-d reshape these would emit inside Pallas kernels).
+            # No-op reshapes elided (see _wrap_scalar_fn).
             v = v if v.shape == () else v.reshape(())
             g = g if g.shape == (ndim,) else g.reshape((ndim,))
             return v, g
@@ -127,13 +124,13 @@ def _wrap_grad_fn(f, args, kwargs, ndim, dtype):
 
 
 class PTSampler:
-    """Parallel-Tempering MCMC sampler, TPU-native.
+    """Parallel-Tempering MCMC sampler on an accelerator.
 
     Drop-in constructor signature for the reference (PTMCMCSampler.py:75-93)
-    plus TPU extensions (``ntemps``, ``nchains``, ``dtype``, ``jump_select``,
+    plus extensions (``ntemps``, ``nchains``, ``dtype``, ``jump_select``,
     ``per_chain_mode``, ``swap_mode``, ``adapt_from``, ``mesh``,
-    ``rng_impl``, ``nuts_impl``, ``nuts_pass1_depth``, ``de_pair``,
-    ``de_block``); see MIGRATION.md for the kwarg-by-kwarg map.
+    ``rng_impl``, ``de_pair``, ``de_block``); see MIGRATION.md for the
+    kwarg-by-kwarg map.
     """
 
     def __init__(
@@ -164,13 +161,10 @@ class PTSampler:
         temp_axis="temp",
         chain_axis="chain",
         rng_impl="threefry2x32",
-        use_pallas=None,
-        nuts_impl="auto",
         host_history_bytes=2 * 1024**3,
         de_pair="blocked",
         de_block=8,
         per_chain_mode="auto",
-        nuts_pass1_depth=4,
     ):
         del comm  # MPI compat shim: distribution is mesh-based here.
         self.ndim = int(ndim)
@@ -185,36 +179,17 @@ class PTSampler:
         self.chain_axis = chain_axis
         self.jump_select = jump_select
         # DE pair selection ("blocked" | "iid" | "rolled") and the blocked
-        # group width; per_chain rotation/stacked selection; NUTS two-pass
-        # depth bucketing — see config.SamplerConfig for the trade-offs.
+        # group width; per_chain rotation/stacked selection — see
+        # config.SamplerConfig for the trade-offs.
         self.de_pair = de_pair
         self.de_block = int(de_block)
         self.per_chain_mode = per_chain_mode
-        self.nuts_pass1_depth = int(nuts_pass1_depth)
         # None = auto: "deo" when the temperature axis ends up sharded over
         # >1 device (neighbor ppermute exchanges, no GSPMD gathers on the
         # swap path), "sweep" (reference-parity serial sweep) otherwise.
         # Resolved per-run in sample() once the mesh is known.
         self.swap_mode = swap_mode
         self.adapt_from = adapt_from
-        # Fused Pallas trajectory kernels for the gradient jumps (HMC and
-        # ChEES leapfrog loops in VMEM, ops/). The kernels are bit-verified
-        # against the XLA paths (tests/test_pallas_ops.py) and usable
-        # standalone, but embedded in the scanned step on real TPU hardware
-        # they failed terminally in three consecutive measurement rounds
-        # (worker crash / 55-min compile stall / kernel-fault crash —
-        # PROFILE_r02/r03/r04.md), so use_pallas=True with ChEES/HMC jumps
-        # now RAISES on TPU (proposals/cycle.py) instead of hanging or
-        # killing the worker; the XLA leapfrog path (~0.6 ms/iter) is the
-        # shipped configuration. (NUTS has its own hardware-validated
-        # default-on TPU kernel; see nuts_impl below.)
-        self.use_pallas = bool(use_pallas) if use_pallas is not None else False
-        # NUTS path selection ("auto" | "xla" | "pallas"): "auto" rides the
-        # fused Pallas tree kernel on TPU when NUTSmaxdepth <= 10 and no
-        # trajectory capture is requested (proposals/cycle.py gate); the
-        # round-2 scanned-step worker crash is resolved by the masked-fori
-        # kernel (PROFILE_r03.md measures it inside scanned blocks).
-        self.nuts_impl = nuts_impl
 
         self._logl_fn, self._logl_traceable = _wrap_scalar_fn(
             logl, loglargs or [], loglkwargs or {}, self.ndim, self.dtype
@@ -251,8 +226,9 @@ class PTSampler:
         if seed is None:
             seed = int(np.random.SeedSequence().generate_state(1)[0])
         # Typed key with a selectable PRNG: "threefry2x32" (JAX default,
-        # fully reproducible) or "rbg"/"unsafe_rbg" (hardware-accelerated on
-        # TPU — much cheaper per draw in the hot loop).
+        # reproducible under any sharding) or "rbg"/"unsafe_rbg" (XLA's
+        # RngBitGenerator; its stream may depend on how the program is
+        # partitioned).
         self._key = jax.random.key(seed, impl=rng_impl)
 
         self._custom_jumps = []
@@ -428,14 +404,11 @@ class PTSampler:
             burn=burn,
             thin=thin,
             de_size=max(burn, self.nchains),
-            use_pallas=self.use_pallas,
-            nuts_impl=self.nuts_impl,
             nuts_max_depth=nuts_max_depth,
             jump_select=self.jump_select,
             per_chain_mode=self.per_chain_mode,
             de_pair=self.de_pair,
             de_block=self.de_block,
-            nuts_pass1_depth=self.nuts_pass1_depth,
             swap_mode=self._resolved_swap_mode(),
             adapt_from=self.adapt_from,
             dtype=self.dtype,
@@ -444,7 +417,6 @@ class PTSampler:
             hmc_nmaxsteps=hmc_kwargs.get("nmaxsteps", 300),
             nuts_trajectory=nuts_trajectory,
             mass_adapt=mass_adapt,
-            verbose=bool(self.verbose),
             **(ladder_kwargs or {}),
         )
 
@@ -530,7 +502,7 @@ class PTSampler:
             MALA=MALAweight, HMC=HMCweight, CHEES=CHEESweight,
         )
         # Mesh first: swap_mode=None auto-selects DEO when the temperature
-        # axis is sharded, so the default multi-chip configuration rides the
+        # axis is sharded, so the default multi-device configuration rides the
         # ppermute swap path instead of the serial sweep's fori_loop +
         # take_along_axis, which GSPMD lowers to cross-device gathers every
         # tskip (the on-host analogue it replaces: gather -> rank-0 sweep ->
@@ -548,9 +520,6 @@ class PTSampler:
             mass_adapt=bool(massAdapt),
             # Tree-depth cap (the reference's doubling loop is unbounded,
             # nutsjump.py:716; a cap is required for compiled control flow).
-            # Depths <= 10 (incl. this default) ride the fused Pallas kernel
-            # on TPU (nuts_impl); deeper trees fall back to XLA with a loud
-            # warning (proposals/cycle.py).
             nuts_max_depth=int(NUTSmaxdepth),
             ladder_kwargs=dict(
                 adapt_ladder=bool(adaptLadder),
@@ -579,6 +548,7 @@ class PTSampler:
             mesh=mesh, temp_axis=self.temp_axis,
         )
         self._step_fn = step
+        self._run_block = run_block
 
         # Initial state.
         p0 = np.asarray(p0, dtype=np.float64)
@@ -605,7 +575,7 @@ class PTSampler:
         pid = jax.process_index()
         if self._multi and self._traj_writer is not None:
             # _drain_block_multi has no trajectory handling; failing loudly
-            # beats a silently empty trajectoryDir after a long pod run.
+            # beats a silently empty trajectoryDir after a long multi-process run.
             raise NotImplementedError(
                 "trajectoryDir capture is not supported in multi-process "
                 "runs; capture trajectories in a single-process run"
@@ -743,7 +713,7 @@ class PTSampler:
         # Double-buffered dispatch for the common single-process fixed-Niter
         # case: the next block is dispatched (async) before the previous one
         # is drained, so host-side I/O and the device->host sync round-trip
-        # overlap device compute instead of idling the chip. neff termination
+        # overlap device compute instead of idling the device. neff termination
         # and multi-process runs keep the serial loop (their stop decision
         # must see the freshly drained history each block).
         if (
@@ -833,7 +803,7 @@ class PTSampler:
         ~linearly with chains. Multi-process: only the process holding drained
         cold-chain history may vote to stop — on every other process the host
         history is just the 1-row seed, whose tau=1.0 would make n_eff = it
-        and falsely signal completion pod-wide (the stop flag is OR-reduced
+        and falsely signal completion everywhere (the stop flag is OR-reduced
         across processes).
         """
         if self.nchains > 1 and self._chains_host:
@@ -866,8 +836,8 @@ class PTSampler:
             return self.swap_mode
         # Resuming under auto-selection: the replica-exchange law (sweep vs
         # DEO) is part of the sampler's statistical behavior, so a run resumed
-        # on a different device topology (e.g. a pod checkpoint resumed on one
-        # chip) must keep the mode it started with, not silently switch
+        # on a different device topology (e.g. a multi-device checkpoint resumed
+        # on one device) must keep the mode it started with, not silently switch
         # mid-run. The resolved mode is persisted in the checkpoint meta.
         if self.resume:
             ckpt_mode = self._checkpoint_meta_value("swap_mode")
@@ -903,7 +873,7 @@ class PTSampler:
     def _resolve_mesh(self):
         """Pick the device mesh for this run (or None for unsharded).
 
-        The TPU-native counterpart of the reference's ``mpirun -np N`` launch
+        The counterpart of the reference's ``mpirun -np N`` launch
         model (README.md:40-46; one MPI rank per temperature,
         PTMCMCSampler.py:94-105): the same jitted step program runs SPMD over
         the mesh and GSPMD/shard_map insert the collectives. An explicit
@@ -1315,7 +1285,7 @@ class PTSampler:
     @property
     def chains(self):
         """ALL vmapped cold chains, chains-major [nchains, rows, ndim] —
-        the TPU throughput axis the reference cannot have. Feed directly to
+        the throughput axis the reference cannot have. Feed directly to
         :func:`ptmcmcsampler_tpu.diagnostics.multichain_ess`.
 
         This is the bounded in-RAM window of the most recent rows (see

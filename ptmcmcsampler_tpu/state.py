@@ -96,10 +96,9 @@ class SamplerState:
     key: jax.Array  # PRNG key (uint32[2])
     it: jax.Array  # scalar i32, current iteration number
     # Positions are CHAIN-MINOR ([T, D, C], not [T, C, D]): the vmapped chain
-    # batch is the throughput axis, and keeping it minormost means every
-    # elementwise op tiles the 128-lane axis fully. The [T, C, D] layout
-    # measured 2/128 lane utilization on the dominant ops plus ~100 us/iter
-    # of XLA layout-conversion copies at [8, 8192, 2] (round-5 trace).
+    # batch is the throughput axis, and keeping it minormost makes every
+    # elementwise op run over contiguous chains (at small D, a [T, C, D]
+    # layout leaves the minor axis D wide and forces layout copies).
     x: jax.Array  # [T, D, C] positions (chain-minor)
     lnlike: jax.Array  # [T, C]
     lnprior: jax.Array  # [T, C]
@@ -125,7 +124,7 @@ def init_adapt_state(config: SamplerConfig, cov0: np.ndarray) -> AdaptState:
     for g in config.groups:
         sub = cov0[np.ix_(g, g)]
         # Reference uses SVD of the symmetric PSD group covariance
-        # (PTMCMCSampler.py:139-145); eigh is the TPU-friendly equivalent.
+        # (PTMCMCSampler.py:139-145); eigh of the symmetric block is equivalent.
         s, u = np.linalg.eigh(sub)
         s = np.maximum(s, 0.0)
         group_u.append(jnp.asarray(u, dtype=dt))

@@ -41,10 +41,8 @@ def _sweep_rows(key, lnlike, betas, payload_rows=()):
 
     The sweep is unrolled over the (static, small) temperature count and
     carries the *permuted* likelihood rows directly, so no per-chain gather
-    (``lnlike[m[i]]``) ever appears — per-element axis-0 gathers lower to
-    ~60 us kCustom fusions per sweep step on TPU, which made the swap event
-    the single most expensive part of the headline iteration (round-5 trace).
-    Any extra ``payload_rows`` (each a list of T arrays with leading chain
+    (``lnlike[m[i]]``) ever appears: per-element axis-0 gathers cost far more
+    than the dense selects that replace them. Any extra ``payload_rows`` (each a list of T arrays with leading chain
     axis) are permuted by the same exchanges.
 
     Returns (m_rows, acc_rows, ll_rows, payload_rows) with identical values
@@ -171,9 +169,7 @@ def apply_swap(swap_map, x, lnlike, lnprior):
 
     For the small static temperature counts PT ladders use, the per-chain
     axis-0 gather is expressed as a masked row sum (T selects per output row)
-    — value-identical, but fully vectorized on TPU where ``take_along_axis``
-    lowers to a slow per-element kCustom gather (~0.5 ms per [8, 8192, 2]
-    permute on a v5e chip).
+    — value-identical to ``take_along_axis``, but dense and vectorized.
     """
     t = lnlike.shape[0]
     if t > 16:  # select-sum cost grows as T^2; gathers win for tall ladders
@@ -241,12 +237,12 @@ def deo_swap_apply(key, x, lnlike, lnprior, betas, parity):
 def make_sharded_deo(mesh, temp_axis, ntemps, parity_fn=None):
     """DEO swaps as neighbor ``ppermute`` exchanges under ``shard_map``.
 
-    The TPU-native replacement SURVEY §2.3 names for the reference's
-    gather → rank-0 sweep → scatter (PTMCMCSampler.py:660-691): when the
-    temperature ladder is sharded over a mesh axis, a DEO event only ever
-    exchanges *adjacent* rows, so the only cross-device traffic is each
-    shard's boundary row moving one neighbor over ICI — a
-    ``collective-permute``, never an all-gather of the positions.
+    The replacement SURVEY §2.3 names for the reference's gather → rank-0
+    sweep → scatter (PTMCMCSampler.py:660-691): when the temperature ladder
+    is sharded over a mesh axis, a DEO event only ever exchanges *adjacent*
+    rows, so the only cross-device traffic is each shard's boundary row
+    moving one neighbor over — a ``collective-permute``, never an all-gather
+    of the positions.
 
     Randomness comes from :func:`pair_uniforms`' per-pair ``fold_in`` draws,
     which every shard regenerates locally from the replicated key — the
@@ -256,12 +252,8 @@ def make_sharded_deo(mesh, temp_axis, ntemps, parity_fn=None):
     Returns ``f(key, x, lnlike, lnprior, betas, parity) ->
     (x, lnlike, lnprior, accepted [T, C] bool, proposed [T] bool)``.
     """
+    from jax import shard_map
     from jax.sharding import PartitionSpec as P
-
-    try:
-        from jax import shard_map
-    except ImportError:  # older jax
-        from jax.experimental.shard_map import shard_map
 
     ndev = mesh.shape[temp_axis]
     assert ntemps % ndev == 0, (ntemps, ndev)

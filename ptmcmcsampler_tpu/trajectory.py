@@ -6,7 +6,7 @@ the ``trajectoryDir`` / ``write_burnin`` dump mechanism (nutsjump.py:400-433,
 the used (start -> chosen sample) path to text files for debugging and
 visualization.
 
-TPU-native design: the reference grows numpy buffers imperatively inside the
+Design: the reference grows numpy buffers imperatively inside the
 recursion; here the capture kernel (``proposals.nuts.make_nuts(capture=True)``)
 fills fixed-size device buffers for the designated chain (temperature 0,
 chain 0) inside the jitted program, and the host-side :class:`TrajectoryWriter`

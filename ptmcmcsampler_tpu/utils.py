@@ -1,18 +1,39 @@
-"""Small shared utilities for the TPU-native PTMCMC framework.
+"""Small shared utilities for the PTMCMC framework.
 
 This framework is a ground-up JAX/XLA re-design of the capabilities of
-nanograv/PTMCMCSampler (reference: /root/reference/PTMCMCSampler). Nothing in
-here is a translation of reference code; reference citations in docstrings are
-for behavioral parity only.
+nanograv/PTMCMCSampler. Nothing in here is a translation of reference code;
+reference citations in docstrings are for behavioral parity only.
 """
 
 from __future__ import annotations
+
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
 NEG_INF = -jnp.inf
+
+#: Root of the source checkout (the directory holding the package).
+CHECKOUT_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def enable_compile_cache(root=CHECKOUT_ROOT):
+    """Turn on JAX's persistent compilation cache for an entry point.
+
+    Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+    sets nothing. Otherwise the cache goes to ``<root>/.jax_cache``: a fixed
+    path, so a later run of the same checkout finds what an earlier one
+    compiled. Called by ``chip_smoke.py``, ``bench.py`` and ``tools/``;
+    importing the package never calls it. Returns the cache directory.
+    """
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    path = os.path.join(root, ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    return path
 
 
 def tempered_lnprob(lnlike, lnprior, beta):
@@ -59,7 +80,7 @@ def ensure_typed_key(key):
     """Normalize to a typed PRNG key (new-style). Raw uint32 data is wrapped
     with the default impl (threefry2x32), preserving the exact stream. Typed
     keys let the whole sampler run on alternative PRNGs (``rbg`` /
-    ``unsafe_rbg`` — markedly faster on TPU than threefry)."""
+    ``unsafe_rbg``)."""
     if jnp.issubdtype(jnp.asarray(key).dtype, jax.dtypes.prng_key):
         return key
     return jax.random.wrap_key_data(jnp.asarray(key))

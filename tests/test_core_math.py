@@ -104,7 +104,7 @@ class TestWelford:
 class TestWelfordKahanCount:
     def test_count_exact_at_huge_n(self):
         """f32 alone saturates once ulp(count) reaches the batch size; the
-        Kahan pair must keep accumulating exactly (VERDICT r2 item 9)."""
+        Kahan pair must keep accumulating exactly."""
         cfg = _mini_config(2)
         adapt = init_adapt_state(cfg, np.eye(2))
         # Pretend a long run already consumed 2^36 samples (ulp = 8192 > m).
@@ -147,7 +147,7 @@ class TestDEPairLaw:
         """The (mm, nn) draw must be uniform over *ordered distinct* pairs,
         matching the reference's redraw-until-distinct loop
         (PTMCMCSampler.py:963-966). The old +1-mod collision remap made
-        (i, i+1) twice as likely as (i+1, i) (VERDICT r2 weak #2)."""
+        (i, i+1) twice as likely as (i+1, i)."""
         from ptmcmcsampler_tpu.proposals.de import make_de
         from ptmcmcsampler_tpu.proposals.base import ProposalContext
         from ptmcmcsampler_tpu.config import JumpSpec, KIND_DE

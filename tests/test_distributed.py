@@ -4,10 +4,10 @@ The reference's multi-rank code paths are never exercised by its CI — it
 installs OpenMPI only so mpi4py builds, then runs single-process
 (SURVEY.md §4, .github/workflows/ci_test.yml:30-46). Here we do strictly
 better: launch TWO actual OS processes, join them through
-``initialize_distributed`` (the ``mpirun`` analogue), build the hybrid
+``initialize_distributed`` (the ``mpirun`` analogue), build the
 (temp x chain) mesh of ``make_pt_mesh`` with the chain axis tiling the
 processes, and run the jitted sampler step program collectively
-(parallel/distributed.py:22-99).
+(parallel/distributed.py).
 """
 
 import os
@@ -76,7 +76,7 @@ def test_two_process_mesh_step():
 def test_two_process_ptsampler_sample_and_resume(tmp_path):
     """`PTSampler.sample()` itself (not just the kernel) across two real
     processes: per-process chain files, pooled replicated statistics,
-    multi-process checkpoint + resume. Closes VERDICT r2 missing #1 (the
+    multi-process checkpoint + resume (the
     reference's whole launch model is ``mpirun -np N``, README.md:40-46)."""
     import json
 

@@ -170,8 +170,7 @@ class TestMALA:
 
     @pytest.mark.slow
     def test_corrected_mala_is_stationary_and_reference_formula_is_not(self):
-        """Distribution-level proof of the documented deviation (VERDICT r2
-        item 4): our corrected qxy (normalized Gaussian density ratio) leaves
+        """Distribution-level proof of the documented deviation: our corrected qxy (normalized Gaussian density ratio) leaves
         N(0,1) invariant; the reference's formula (nutsjump.py:233, missing
         the 1/cd^2 normalization — the reason for the 'MALA jumps are not
         working properly yet' warning, PTMCMCSampler.py:230-231) does not."""

@@ -46,7 +46,6 @@ def _build(ndim=3, ntemps=2, nchains=128, jump_select="per_chain",
         tskip=10, cov_update=100, burn=burn, thin=2, de_size=200,
         jump_select=jump_select, per_chain_mode=per_chain_mode,
         hmc_stepsize=0.1, hmc_nmaxsteps=10, nuts_max_depth=4,
-        nuts_impl="xla",
     )
     step, run_block = build_step(cfg, logl, logp, func_grad if with_grads else None)
     ladder = temperature_ladder(ndim, ntemps)

@@ -1,4 +1,4 @@
-"""Round-5 resume hardening: checkpoint leaf backfill, swap-mode
+"""Resume hardening: checkpoint leaf backfill, swap-mode
 persistence, and cov.npy warm-start on chain-file-only resume."""
 
 import json
@@ -80,7 +80,7 @@ def test_auto_swap_mode_persisted_and_reused(tmp_path):
 def test_chain_file_resume_warm_starts_cov(tmp_path, capsys):
     """Without a usable checkpoint, resume reloads cov.npy (which the run
     itself wrote) instead of re-burning the proposal covariance from its
-    initial value (VERDICT r4 residual #3)."""
+    initial value."""
     out = str(tmp_path / "chains")
     s = _run(out, niter=300)
     cov_written = np.load(os.path.join(out, "cov.npy"))
@@ -112,7 +112,7 @@ def test_chain_file_resume_without_cov_warns(tmp_path, capsys):
 
 
 def test_old_layout_checkpoint_transposes_on_load(tmp_path):
-    """Pre-round-5 checkpoints stored x as [T, C, D] and the DE ring as
+    """Older checkpoints stored x as [T, C, D] and the DE ring as
     [B, D]; they must load losslessly into the chain-minor layout."""
     out = str(tmp_path / "chains")
     s = _run(out)

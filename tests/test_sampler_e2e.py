@@ -365,9 +365,8 @@ def test_resume_falls_back_on_stale_checkpoint(tmp_path):
 
 def test_grad_wrappers_elide_noop_reshapes():
     """A user grad that already returns the right shapes must not gain no-op
-    reshape ops from the wrapper: vmapped 0-d reshapes fail Mosaic
-    verification inside the fused Pallas NUTS kernel ('vector.broadcast'
-    f32->f32, hit on the chip by the 40-D parity run)."""
+    reshape ops from the wrapper: the compiled program carries exactly the
+    user's operations."""
     import jax
 
     from ptmcmcsampler_tpu.models import IntervalTransformedGaussian

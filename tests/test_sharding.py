@@ -124,7 +124,7 @@ def test_2d_pt_mesh_temp_and_chain():
 
 class TestShardedDeoSwaps:
     """ppermute-based DEO replica exchange under shard_map (SURVEY §2.3's
-    TPU-native target for the reference's gather->sweep->scatter,
+    target for the reference's gather->sweep->scatter,
     PTMCMCSampler.py:660-691)."""
 
     def _inputs(self, ntemps=8, nchains=4, ndim=3, seed=0):
@@ -220,8 +220,8 @@ class TestShardedDeoSwaps:
 
 
 class TestPTSamplerOnMesh:
-    """The user-facing sampler places its state on a mesh (VERDICT item:
-    the reference's whole launch model is `mpirun -np N`; here `PTSampler`
+    """The user-facing sampler places its state on a mesh (the
+    reference's whole launch model is `mpirun -np N`; here `PTSampler`
     itself must produce sharded execution, not just the internals)."""
 
     def _make(self, tmp_path, **kw):
@@ -277,7 +277,7 @@ class TestPTSamplerOnMesh:
         assert s.state.x.sharding.spec[2] == "chain"
 
     def test_auto_swap_mode_routes_sharded_temp_axis_to_deo(self, tmp_path):
-        """Round-4 verdict item: the default multi-chip configuration must
+        """The default multi-device configuration must
         not run the serial sweep over a sharded temperature axis (GSPMD
         lowers its gathers every tskip). swap_mode=None auto-selects DEO
         exactly when the temp axis is sharded; an explicit mode always wins.
@@ -326,42 +326,3 @@ def test_pt_mesh_rejects_bad_chain_split(monkeypatch):
 
     with _pytest.raises(ValueError, match="multiple of the"):
         dist.make_pt_mesh(ntemp_devices=2, nchain_devices=4)
-
-
-def test_pallas_nuts_branch_runs_on_sharded_mesh():
-    """The default multi-chip TPU NUTS path puts the fused Pallas tree
-    kernel inside a GSPMD-sharded step program; the pallas_call must
-    partition (or replicate-and-slice) without error. Exercised here with
-    the interpreter on the temperature-sharded 8-device CPU mesh."""
-    from ptmcmcsampler_tpu.config import JumpSpec, KIND_NUTS, SamplerConfig
-    from ptmcmcsampler_tpu.kernel import build_step as _build_step
-    from ptmcmcsampler_tpu.parallel import shard_state as _shard_state
-
-    def logl(x):
-        return -0.5 * jnp.sum(x**2)
-
-    def logp(x):
-        return jnp.where(jnp.all(jnp.abs(x) < 20.0), 0.0, -jnp.inf)
-
-    def fg(x, beta):
-        return beta * logl(x), -beta * x
-
-    cfg = SamplerConfig(
-        ndim=3, ntemps=8, nchains=4, groups=((0, 1, 2),),
-        jumps=(JumpSpec("N", KIND_NUTS, 1),),
-        tskip=5, cov_update=20, burn=20, thin=1, de_size=50,
-        nuts_impl="pallas", nuts_max_depth=4,
-    )
-    _, run_block = _build_step(cfg, logl, logp, fg)
-    ladder = temperature_ladder(3, 8)
-    _, betas = ladder_betas(ladder)
-    xs = jnp.zeros((8, 4, 3)) + 0.3
-    state = init_state(
-        cfg, jax.random.PRNGKey(0), np.zeros(3) + 0.3, np.eye(3) * 0.1,
-        betas, jax.vmap(jax.vmap(logl))(xs), jax.vmap(jax.vmap(logp))(xs),
-    )
-    state = shard_state(state, make_temp_mesh(8), axis="temp")
-    state, out = run_block(state, 10)
-    x = np.asarray(jax.device_get(state.x))
-    assert np.isfinite(x).all()
-    assert np.abs(x - 0.3).max() > 0  # chains moved

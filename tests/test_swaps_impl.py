@@ -1,7 +1,7 @@
 """Bit-identity of the gather-free swap implementations.
 
 Round 5 replaced the fori_loop + take_along_axis sweep and the swap-map
-gathers (slow per-element kCustom gathers on TPU) with unrolled row-exchange
+gathers (slow per-element gathers) with unrolled row-exchange
 carries and masked row sums. These tests pin the new implementations to the
 original formulations (kept here as oracles) bit-for-bit on random inputs,
 including -inf likelihood rows (hot prior-sampling chains).
@@ -16,7 +16,7 @@ from ptmcmcsampler_tpu import swaps
 
 
 def _oracle_sweep_swap_map(key, lnlike, betas):
-    """The original fori_loop + take_along_axis sweep (pre-round-5)."""
+    """The original fori_loop + take_along_axis sweep."""
     t, c = lnlike.shape
     us = jax.random.uniform(key, (t - 1, c) if t > 1 else (1, c))
     swap_map0 = jnp.broadcast_to(jnp.arange(t, dtype=jnp.int32)[:, None], (t, c))

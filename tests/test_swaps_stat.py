@@ -72,7 +72,6 @@ def test_deo_matches_sweep_statistics():
     # >150k proposals per adjacent pair: the nominal per-pair MC error is
     # <1% and even with chain autocorrelation stays well under 5%, so a
     # per-pair 15% gate has real teeth against a swap-law regression
-    # (VERDICT r4 weak #6 asked for exactly this bound).
     _, run_sweep, s1 = build(swap_mode="sweep", seed=1, nchains=64)
     _, run_deo, s2 = build(swap_mode="deo", seed=2, nchains=64)
     s1, _ = run_sweep(s1, 400)

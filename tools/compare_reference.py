@@ -1,12 +1,13 @@
 #!/usr/bin/env python
 """Statistical parity check: sample the same posteriors with BOTH the
-reference PTMCMCSampler (run from /root/reference, not copied) and this
-framework, and compare cold-chain posterior moments.
+reference PTMCMCSampler (imported from the checkout named by the
+PTMCMC_REFERENCE environment variable, not copied) and this framework, and
+compare cold-chain posterior moments.
 
 Trajectory-level comparison is impossible (different RNGs by construction,
 SURVEY.md §7 "hard parts"), so parity is defined distributionally: means,
 variances, and covariances of the cold chain must agree within Monte-Carlo
-error. Writes PARITY_MEASURED.json with three records:
+error. Writes chiprun_out/parity_measured.json with three records:
 
   * curved_cheap — the curved/banana posterior, AM/SCAM/DE cycle on both
     sides (reference examples/curved_likelihood.ipynb cell 1);
@@ -17,7 +18,8 @@ error. Writes PARITY_MEASURED.json with three records:
     gaussian_likelihood.ipynb / tests/test_nuts.py, gradient jumps on both
     sides (reference NUTS+HMC vs framework NUTS).
 
-Usage: python tools/compare_reference.py [niter_ref] [niter_tpu]
+Usage: PTMCMC_REFERENCE=<reference checkout> \
+       python tools/compare_reference.py [niter_ref] [niter_jax]
 """
 
 import json
@@ -28,7 +30,7 @@ import types
 
 import numpy as np
 
-sys.path.insert(0, "/root/reference")
+sys.path.insert(0, os.environ["PTMCMC_REFERENCE"])
 _v = types.ModuleType("PTMCMCSampler.version")
 _v.version = "0.0.0-local"
 sys.modules["PTMCMCSampler.version"] = _v
@@ -134,13 +136,13 @@ def ref_gaussian40(niter=30000, outdir="/tmp/ref_parity_gauss40"):
 # --------------------------------------------------------------- framework
 
 
-def tpu_curved(niter=20000, nchains=512, chees=False, outdir=None):
+def jax_curved(niter=20000, nchains=512, chees=False, outdir=None):
     import jax
 
     from ptmcmcsampler_tpu import PTSampler
     from ptmcmcsampler_tpu.models import CurvedLikelihood
 
-    outdir = outdir or f"/tmp/tpu_parity_curved{'_chees' if chees else ''}"
+    outdir = outdir or f"/tmp/jax_parity_curved{'_chees' if chees else ''}"
     cl = CurvedLikelihood()
     kw = {}
     if chees:
@@ -163,7 +165,7 @@ def tpu_curved(niter=20000, nchains=512, chees=False, outdir=None):
     return x, dt
 
 
-def tpu_gaussian40(niter=6000, nchains=64, outdir="/tmp/tpu_parity_gauss40"):
+def jax_gaussian40(niter=6000, nchains=64, outdir="/tmp/jax_parity_gauss40"):
     from ptmcmcsampler_tpu import PTSampler
     from ptmcmcsampler_tpu.models import IntervalTransformedGaussian
 
@@ -213,7 +215,7 @@ def compare(xr, xt, tau_ref):
     )
     return dict(
         reference=sr,
-        tpu=st,
+        jax=st,
         mean_abs_diff=dmean.tolist(),
         mean_tolerance=(6 * se + 0.05 * np.maximum(scale, 1.0)).tolist(),
         ok_mean=ok_mean,
@@ -224,38 +226,44 @@ def compare(xr, xt, tau_ref):
 
 def main():
     niter_ref = int(sys.argv[1]) if len(sys.argv) > 1 else 200000
-    niter_tpu = int(sys.argv[2]) if len(sys.argv) > 2 else 20000
+    niter_jax = int(sys.argv[2]) if len(sys.argv) > 2 else 20000
 
     records = {}
 
     _log(f"reference curved x{niter_ref}...")
     xr, t_ref = ref_curved(niter_ref)
     _log(f"reference curved done in {t_ref:.1f}s; framework cheap cycle...")
-    xt, t_tpu = tpu_curved(niter_tpu)
+    xt, t_jax = jax_curved(niter_jax)
     rec = compare(xr, xt, tau_ref=400.0)
-    rec.update(ref_seconds=round(t_ref, 1), tpu_seconds=round(t_tpu, 1))
+    rec.update(ref_seconds=t_ref, jax_seconds=t_jax)
     records["curved_cheap"] = rec
 
     _log("framework ChEES cycle (bench configuration)...")
-    xt2, t_tpu2 = tpu_curved(niter_tpu, chees=True)
+    xt2, t_jax2 = jax_curved(niter_jax, chees=True)
     rec2 = compare(xr, xt2, tau_ref=400.0)
-    rec2.update(ref_seconds=round(t_ref, 1), tpu_seconds=round(t_tpu2, 1))
+    rec2.update(ref_seconds=t_ref, jax_seconds=t_jax2)
     records["curved_chees"] = rec2
 
     _log("reference gaussian40 (NUTS/HMC)...")
     xr3, t_ref3 = ref_gaussian40()
     _log(f"reference gaussian40 done in {t_ref3:.1f}s; framework NUTS...")
-    xt3, t_tpu3 = tpu_gaussian40()
+    xt3, t_jax3 = jax_gaussian40()
     rec3 = compare(xr3, xt3, tau_ref=30.0)
-    rec3.update(ref_seconds=round(t_ref3, 1), tpu_seconds=round(t_tpu3, 1))
+    rec3.update(ref_seconds=t_ref3, jax_seconds=t_jax3)
     records["gaussian40"] = rec3
 
+    import jax
+
+    dev = jax.devices()[0]
     out = dict(
         records=records,
         ok=all(r["ok"] for r in records.values()),
         measured=time.strftime("%Y-%m-%d"),
+        platform=dev.platform,
+        device_kind=dev.device_kind,
     )
-    path = os.path.join(os.path.dirname(__file__), "..", "PARITY_MEASURED.json")
+    path = os.path.join(os.path.dirname(__file__), "..", "chiprun_out", "parity_measured.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(out, f, indent=2)
     print(json.dumps(out, indent=2))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
-"""Dump the optimized HLO of the headline bench block (TPU compile cache hit)
-so trace fusion names can be mapped back to source ops.
+"""Dump the optimized HLO of the headline bench block so trace fusion names
+can be mapped back to source ops. Run it on the machine whose compiler you
+want to read (a GPU run compiles for the GPU).
 
-Usage: python tools/dump_hlo.py [out=/tmp/headline_hlo.txt] [nchains=8192]
+Usage: python tools/dump_hlo.py [out=chiprun_out/headline_hlo.txt] [nchains=16384]
 """
 
 import sys
@@ -22,17 +23,11 @@ def main():
         if "=" in arg:
             k, v = arg.split("=", 1)
             kwargs[k] = v
-    out = kwargs.get("out", "/tmp/headline_hlo.txt")
-    nchains = int(kwargs.get("nchains", "8192"))
+    out = kwargs.get("out", "chiprun_out/headline_hlo.txt")
+    nchains = int(kwargs.get("nchains", "16384"))
     iters = int(kwargs.get("iters", "1000"))
 
     import jax
-
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
     import jax.numpy as jnp
     import numpy as np
 
@@ -41,7 +36,9 @@ def main():
     from ptmcmcsampler_tpu.ladder import ladder_betas, temperature_ladder
     from ptmcmcsampler_tpu.models import CurvedLikelihood
     from ptmcmcsampler_tpu.state import init_state
+    from ptmcmcsampler_tpu.utils import enable_compile_cache
 
+    enable_compile_cache()
     ntemps, burn_iters = 8, 3000
     model = CurvedLikelihood()
     x0 = np.array([-0.1, -0.5])
@@ -68,11 +65,12 @@ def main():
     lp0 = jax.vmap(jax.vmap(model.lnpriorfn))(xs)
     state = init_state(cfg, jax.random.key(7, impl="rbg"), x0, np.eye(2), betas, ll0, lp0)
 
-    log("lower+compile (cache hit expected)...")
+    log("lower+compile...")
     t0 = time.time()
     compiled = run_block.lower(state, iters).compile()
     log(f"compiled in {time.time() - t0:.1f}s; writing text...")
     txt = compiled.as_text()
+    Path(out).parent.mkdir(parents=True, exist_ok=True)
     with open(out, "w") as f:
         f.write(txt)
     log(f"wrote {len(txt) / 1e6:.1f} MB to {out}")

@@ -22,12 +22,6 @@ def log(m):
 
 def run():
     import jax
-
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
     import jax.numpy as jnp
     import numpy as np
 
@@ -39,7 +33,9 @@ def run():
     from ptmcmcsampler_tpu.ladder import ladder_betas, temperature_ladder
     from ptmcmcsampler_tpu.models import CurvedLikelihood, IntervalTransformedGaussian
     from ptmcmcsampler_tpu.state import init_state
+    from ptmcmcsampler_tpu.utils import enable_compile_cache
 
+    enable_compile_cache()
     kwargs = {}
     for arg in sys.argv[1:]:
         if "=" in arg:
@@ -50,7 +46,6 @@ def run():
     ndim = int(kwargs.get("ndim", "2"))
     ntemps = int(kwargs.get("ntemps", "8"))
     rng_impl = kwargs.get("rng_impl", "threefry2x32")
-    use_pallas = bool(int(kwargs.get("use_pallas", "0")))
 
     model = CurvedLikelihood() if ndim == 2 else IntervalTransformedGaussian(ndim=ndim)
     x0 = np.zeros(model.ndim) if ndim != 2 else np.array([-0.1, -0.5])
@@ -88,7 +83,7 @@ def run():
                 groups=(tuple(range(model.ndim)),),
                 jumps=jumps, tskip=100, cov_update=1000, burn=500,
                 thin=1, de_size=2000, hmc_stepsize=0.08, hmc_nmaxsteps=50,
-                nuts_max_depth=8, use_pallas=use_pallas,
+                nuts_max_depth=8,
             )
             step, run_block = build_step(cfg, model.lnlikefn, model.lnpriorfn, func_grad)
             ladder = temperature_ladder(model.ndim, ntemps)
@@ -119,9 +114,11 @@ def run():
             dt = time.time() - t0
             per_iter_us = dt / iters * 1e6
             r = dict(
-                branch=name, nchains=nc, per_iter_us=round(per_iter_us, 1),
-                iters_per_sec=round(iters / dt, 1), compile_s=round(compile_s, 1),
-                chain_iters_per_sec=round(iters / dt * nc * ntemps, 0),
+                branch=name, nchains=nc, per_iter_us=per_iter_us,
+                iters_per_sec=iters / dt, compile_s=compile_s,
+                chain_iters_per_sec=iters / dt * nc * ntemps,
+                platform=jax.devices()[0].platform,
+                device_kind=jax.devices()[0].device_kind,
             )
             results.append(r)
             print(json.dumps(r), flush=True)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """Scaling sweep: run bench.main over a grid of chain counts / gradient modes
 and print a table of iters/s and ESS/s. Used to pick the throughput-optimal
-batch size per chip (the TPU axis the reference doesn't have).
+batch size per device (the axis the reference doesn't have). Needs a GPU,
+as bench.py does.
 
 Usage: python tools/scale_bench.py [nchains=256,1024,4096] [workload=curved]
        [grad_mode=nuts|chees|both] [timed_iters=4000] [burn_iters=2000]
